@@ -1,0 +1,90 @@
+"""Segment-level rowwise fusion (the last optimizer stage).
+
+Collapses maximal single-consumer chains of rowwise operators
+(filter/project/assign/rename/astype/fillna — ``Clip``/``Round`` ride along
+inside Assign expressions) into one :class:`graph.FusedRowwise` node, the
+same move as Dask's low-level ``fuse`` pass.  The physical layer then
+executes the whole chain as a single composed pass
+(``physical.rowwise.apply_fused_rowwise``): members run on full columns,
+Filter members AND into one mask, and one ``filter_compact`` launch packs
+the survivors of every column — no intermediate tables between members.
+
+Safety mirrors the pushdown rules: interior nodes must have exactly one
+consumer, no persist mark (a planned §3.5 materialization point), no side
+effects, and no opaque UDF in their expressions (a UDF runs on the host
+over numpy arrays and may depend on rows the filter drops).  ``session(fusion=False)`` disables
+the pass; each applied fusion emits a ``PlannerEvent(kind="fuse")`` and the
+``fuse.applied`` metric.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from . import expr as E
+from . import graph as G
+
+FUSABLE_OPS = ("filter", "project", "assign", "rename", "astype", "fillna")
+
+
+def _expr_has_udf(x) -> bool:
+    if isinstance(x, E.UDF):
+        return True
+    if isinstance(x, E.Expr):
+        return any(_expr_has_udf(getattr(x, f.name))
+                   for f in dataclasses.fields(x))
+    if isinstance(x, (tuple, list)):
+        return any(_expr_has_udf(v) for v in x)
+    return False
+
+
+def _fusable(n: G.Node) -> bool:
+    if n.op not in FUSABLE_OPS or n.persist or n.has_side_effects():
+        return False
+    return not (_expr_has_udf(getattr(n, "predicate", None))
+                or _expr_has_udf(getattr(n, "expr", None)))
+
+
+def fuse_rowwise_chains(roots: list[G.Node], ctx=None, trace=None
+                        ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Collapse every maximal fusable chain of length ≥ 2; returns
+    (new_roots, idmap) like the other optimizer rules."""
+    from .optimizer import _rebuild
+    parents = G.parents_map(roots)
+    root_ids = {r.id for r in roots}
+
+    def extends_down(n: G.Node) -> bool:
+        # n's child can join n's chain: fusable, single-consumer, and not
+        # itself a force-point root (its value must stay addressable)
+        c = n.inputs[0]
+        return (_fusable(c) and c.id not in root_ids
+                and len(parents.get(c.id, [])) == 1)
+
+    replace: dict[int, G.Node] = {}
+    consumed: set[int] = set()
+    for n in reversed(G.walk(roots)):        # parents before children
+        if n.id in consumed or not _fusable(n) or not extends_down(n):
+            continue
+        members = [n]
+        while extends_down(members[-1]):
+            members.append(members[-1].inputs[0])
+        consumed.update(m.id for m in members)
+        child = members[-1].inputs[0]
+        fused = G.FusedRowwise(child, tuple(reversed(members)))
+        G.copy_runtime_flags(n, fused)
+        replace[n.id] = fused
+        op_list = ",".join(m.op for m in fused.ops)
+        if ctx is not None:
+            from ..obs import PlannerEvent
+            ctx.planner_trace.append(PlannerEvent(
+                f"fuse: {len(fused.ops)} rowwise ops [{op_list}] "
+                f"into fused_rowwise",
+                kind="fuse", head=n.id, n_ops=len(fused.ops),
+                ops=[m.op for m in fused.ops]))
+            metrics = getattr(ctx, "metrics", None)
+            if metrics is not None:
+                metrics.inc("fuse.applied")
+        if trace is not None:
+            trace.append(f"fuse_rowwise #{n.id}: [{op_list}]")
+    if not replace:
+        return roots, {}
+    return _rebuild(roots, replace)

@@ -1,0 +1,646 @@
+"""Task-graph optimizer (paper §2.6/§3): CSE, predicate pushdown with safe
+points, filter fusion, projection pushdown (column selection), zone-map
+partition pruning, metadata dtype narrowing.
+
+All rules rebuild the DAG immutably; a node map from original ids to
+rewritten nodes is returned so callers can re-bind frames/scalars.
+
+Deviation from the paper (documented): for a multi-parent node whose parents
+all carry (different) filters p1..pn, the paper's text pushes p1∧…∧pn below;
+the sound combination is p1∨…∨pn (a row failing *all* parents' predicates is
+the only kind that can be dropped).  We implement the disjunction.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+from . import expr as E
+from . import graph as G
+from .context import LaFPContext
+
+
+# ---------------------------------------------------------------------------
+# Rebuild helpers
+
+
+def _rebuild(roots: list[G.Node], replace: dict[int, G.Node]) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Rebuild DAG applying id→node replacements; returns (new_roots, idmap)."""
+    memo: dict[int, G.Node] = {}
+
+    def rec(n: G.Node) -> G.Node:
+        if n.id in memo:
+            return memo[n.id]
+        if n.id in replace:
+            out = rec(replace[n.id])
+        else:
+            new_inputs = [rec(i) for i in n.inputs]
+            if all(a is b for a, b in zip(new_inputs, n.inputs)):
+                out = n
+            else:
+                out = G.copy_runtime_flags(n, n.with_inputs(new_inputs))
+        memo[n.id] = out
+        return out
+
+    new_roots = [rec(r) for r in roots]
+    return new_roots, memo
+
+
+def cse(roots: list[G.Node]) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Merge structurally identical nodes (redundant-computation removal)."""
+    by_key: dict[tuple, G.Node] = {}
+    memo: dict[int, G.Node] = {}
+
+    def rec(n: G.Node) -> G.Node:
+        if n.id in memo:
+            return memo[n.id]
+        new_inputs = [rec(i) for i in n.inputs]
+        if not all(a is b for a, b in zip(new_inputs, n.inputs)):
+            cand = G.copy_runtime_flags(n, n.with_inputs(new_inputs))
+        else:
+            cand = n
+        key = cand.key()
+        out = by_key.setdefault(key, cand)
+        if out is not cand and cand.persist:
+            out.persist = True
+        memo[n.id] = out
+        return out
+
+    new_roots = [rec(r) for r in roots]
+    return new_roots, memo
+
+
+# ---------------------------------------------------------------------------
+# Predicate pushdown
+
+
+_SWAPPABLE = ("assign", "project", "rename", "astype", "fillna",
+              "sort_values")
+
+
+def _can_swap(f: G.Filter, u: G.Node, parents: dict[int, list[G.Node]]) -> bool:
+    """Paper §3.2 conditions: (1) mod∩used=∅ (2) row-preserving elementwise
+    (3) f is u's only parent."""
+    if u.op not in _SWAPPABLE:
+        return False
+    if G.ALL in u.mod_attrs():
+        return False
+    if u.mod_attrs() & f.predicate.used_cols():
+        return False
+    if u.op == "project":
+        # predicate must only use projected columns (it does, by construction)
+        if not f.predicate.used_cols() <= frozenset(u.columns):
+            return False
+    if len(parents.get(u.id, [])) != 1:
+        return False
+    if u.has_side_effects():
+        return False
+    if u.persist:
+        # planned materialization point (§3.5): rewriting u away would lose
+        # the cached subexpression future force points expect to reuse
+        return False
+    return True
+
+
+def _rename_pred(pred: E.Expr, inv: dict[str, str]) -> E.Expr:
+    """Rewrite column refs when pushing a filter below a rename."""
+    if isinstance(pred, E.Col):
+        return E.Col(inv.get(pred.name, pred.name))
+    if isinstance(pred, E.BinOp):
+        return E.BinOp(pred.op, _rename_pred(pred.left, inv),
+                       _rename_pred(pred.right, inv))
+    if isinstance(pred, E.Not):
+        return E.Not(_rename_pred(pred.child, inv))
+    if isinstance(pred, E.Cast):
+        return E.Cast(_rename_pred(pred.child, inv), pred.dtype)
+    if isinstance(pred, E.DtField):
+        return E.DtField(_rename_pred(pred.child, inv), pred.field)
+    if isinstance(pred, E.IsIn):
+        return E.IsIn(_rename_pred(pred.child, inv), pred.values)
+    return pred
+
+
+def push_filters(roots: list[G.Node], trace: list[str] | None = None
+                 ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Iterate single-step pushes to fixpoint."""
+    total_map: dict[int, G.Node] = {}
+    changed = True
+    guard = 0
+    while changed and guard < 100:
+        guard += 1
+        changed = False
+        parents = G.parents_map(roots)
+        for n in G.walk(roots):
+            if not isinstance(n, G.Filter):
+                continue
+            u = n.inputs[0]
+            # fuse adjacent filters: Filter(Filter(x,p2),p1) → Filter(x,p1∧p2)
+            if isinstance(u, G.Filter) and len(parents.get(u.id, [])) == 1 \
+                    and not u.persist:
+                fused = G.Filter(u.inputs[0],
+                                 E.BinOp("and", u.predicate, n.predicate))
+                # output == n's output: carry n's runtime flags
+                G.copy_runtime_flags(n, fused)
+                roots, m = _rebuild(roots, {n.id: fused})
+                total_map.update(m)
+                if trace is not None:
+                    trace.append(f"fuse_filters #{n.id}+#{u.id}")
+                changed = True
+                break
+            if isinstance(u, G.Join):
+                outc: dict[int, frozenset | None] = {}
+                for w in G.walk(roots):
+                    outc[w.id] = w.out_cols([outc[i.id] for i in w.inputs])
+                nr = None if u.persist else _push_into_join(n, u, parents,
+                                                            trace, outc)
+                if nr is not None:
+                    G.copy_runtime_flags(n, nr)
+                    roots, m = _rebuild(roots, {n.id: nr})
+                    total_map.update(m)
+                    changed = True
+                    break
+                continue
+            if not _can_swap(n, u, parents):
+                continue
+            pred = n.predicate
+            if isinstance(u, G.Rename):
+                inv = {v: k for k, v in u.mapping.items()}
+                pred = _rename_pred(pred, inv)
+            new_filter = G.Filter(u.inputs[0], pred)
+            # the rewritten top node produces n's (filtered) output, so it
+            # inherits n's flags (persist-marked u blocks the swap above)
+            new_u = G.copy_runtime_flags(n, u.with_inputs([new_filter]))
+            roots, m = _rebuild(roots, {n.id: new_u})
+            total_map.update(m)
+            if trace is not None:
+                trace.append(f"push_filter #{n.id} below {u.op}#{u.id}")
+            changed = True
+            break
+    return roots, total_map
+
+
+def _push_into_join(f: G.Filter, j: G.Join, parents, trace, outc
+                    ) -> G.Node | None:
+    """Push a filter into a join side when its columns come wholly from that
+    side (beyond-paper; classic relational rule).  Inner joins: both sides;
+    left joins: left side only."""
+    if len(parents.get(j.id, [])) != 1:
+        return None
+    used = f.predicate.used_cols()
+    lcols = outc.get(j.inputs[0].id)
+    rcols = outc.get(j.inputs[1].id)
+    sfx_l, sfx_r = j.suffixes
+    if any(c.endswith(sfx_l) or c.endswith(sfx_r) for c in used):
+        return None  # suffixed col: ambiguous provenance, stay safe
+    if lcols is not None and used <= lcols:
+        nl = G.Filter(j.inputs[0], f.predicate)
+        if trace is not None:
+            trace.append(f"push_filter #{f.id} into join left")
+        return j.with_inputs([nl, j.inputs[1]])
+    if (j.how == "inner" and rcols is not None and used <= rcols
+            and not (used & (lcols or frozenset()))):
+        nr = G.Filter(j.inputs[1], f.predicate)
+        if trace is not None:
+            trace.append(f"push_filter #{f.id} into join right")
+        return j.with_inputs([j.inputs[0], nr])
+    return None
+
+
+def push_common_parent_filters(roots: list[G.Node], trace=None
+                               ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Paper §3.2 multi-parent case: if *all* parents of u are filters, push
+    their disjunction below u (retaining the originals)."""
+    parents = G.parents_map(roots)
+    for n in G.walk(roots):
+        ps = parents.get(n.id, [])
+        if len(ps) < 2 or not all(isinstance(p, G.Filter) for p in ps):
+            continue
+        if n.op not in _SWAPPABLE and n.op != "scan":
+            continue
+        if isinstance(n, G.Scan):
+            continue  # zone-map pruning handles scan-level pruning
+        preds = [p.predicate for p in ps]
+        disj = preds[0]
+        for p in preds[1:]:
+            disj = E.BinOp("or", disj, p)
+        if n.mod_attrs() & disj.used_cols() or G.ALL in n.mod_attrs():
+            continue
+        pushed = G.Filter(n.inputs[0], disj)
+        new_n = n.with_inputs([pushed])
+        if trace is not None:
+            trace.append(f"push_disjunction below {n.op}#{n.id}")
+        return _rebuild(roots, {n.id: new_n})
+    return roots, {}
+
+
+# ---------------------------------------------------------------------------
+# Selectivity-ordered filter fusion (planner-backed, beyond paper)
+
+
+def order_conjuncts(roots: list[G.Node], ctx: "LaFPContext | None" = None,
+                    trace=None) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Reorder each fused filter's conjuncts most-selective-first using the
+    planner's selectivity estimates (zone maps / NDVs of the filter's
+    input).  Semantically neutral (∧ is commutative); puts the strongest
+    pruner first for zone-map checks and keeps fused predicates in a
+    deterministic, statistics-ranked order."""
+    from .planner.stats import estimate_plan, predicate_selectivity
+    try:
+        stats = estimate_plan(roots, ctx)
+    except Exception:  # noqa: BLE001 — estimation must never break planning
+        return roots, {}
+    replace: dict[int, G.Node] = {}
+    for n in G.walk(roots):
+        if not isinstance(n, G.Filter):
+            continue
+        conj = _conjuncts(n.predicate)
+        if len(conj) < 2:
+            continue
+        child = stats[n.inputs[0].id]
+        scored = sorted(
+            ((predicate_selectivity(c, child), repr(c.key()), c) for c in conj),
+            key=lambda t: (t[0], t[1]))
+        ordered = [c for _, _, c in scored]
+        if ordered == conj:
+            continue
+        nf = G.copy_runtime_flags(n, G.Filter(n.inputs[0], E.conjoin(ordered)))
+        replace[n.id] = nf
+        if trace is not None:
+            trace.append(
+                f"order_conjuncts #{n.id}: "
+                + " ".join(f"{s:.3f}" for s, _, _ in scored))
+    if not replace:
+        return roots, {}
+    return _rebuild(roots, replace)
+
+
+# ---------------------------------------------------------------------------
+# Projection pushdown (column selection, §3.1 at DAG level)
+
+
+def column_selection(roots: list[G.Node], ctx: LaFPContext | None = None,
+                     trace=None) -> tuple[list[G.Node], dict[int, G.Node]]:
+    order = G.walk(roots)
+    live: dict[int, frozenset | None] = {}
+    root_ids = {r.id for r in roots}
+    # out_cols per node (forward)
+    outc: dict[int, frozenset | None] = {}
+    for n in order:
+        outc[n.id] = n.out_cols([outc[i.id] for i in n.inputs])
+    # roots need all their columns
+    for r in roots:
+        live[r.id] = outc[r.id]
+    # backward: requirement flows from parents to children (union)
+    for n in reversed(order):
+        if n.persist:
+            # persisted results serve FUTURE uses whose columns we may not
+            # see in this DAG → keep everything (§3.5 soundness)
+            live[n.id] = None
+        ln = live.get(n.id, frozenset() if n.id not in root_ids else None)
+        reqs = n.required_cols(ln)
+        for inp, req in zip(n.inputs, reqs):
+            prev = live.get(inp.id)
+            if inp.id not in live:
+                live[inp.id] = req
+            elif prev is None or req is None:
+                live[inp.id] = None
+            else:
+                live[inp.id] = prev | req
+    # static-analysis extra columns (future uses beyond this DAG)
+    extra: dict[int, frozenset] = {}
+    if ctx is not None:
+        for sid, cols in ctx.analysis.get("scan_extra_cols", {}).items():
+            extra[sid] = frozenset(cols)
+    replace: dict[int, G.Node] = {}
+    for n in order:
+        ln = live.get(n.id)
+        # dead-assign elimination: the assigned column is never used
+        # downstream → the expression is "not even computed" (paper §2.5)
+        if isinstance(n, G.Assign) and ln is not None and n.name not in ln:
+            replace[n.id] = n.inputs[0]
+            if trace is not None:
+                trace.append(f"dead_assign #{n.id} ({n.name}) dropped")
+            continue
+        # narrow projects to live columns (keep ≥1 to preserve row count)
+        if isinstance(n, G.Project) and ln is not None:
+            keep = tuple(c for c in n.columns if c in ln)
+            if keep and keep != n.columns:
+                replace[n.id] = G.Project(n.inputs[0], keep)
+                if trace is not None:
+                    trace.append(f"narrow_project #{n.id}: "
+                                 f"{len(n.columns)}→{len(keep)}")
+            continue
+        if isinstance(n, G.Scan):
+            need = live.get(n.id)
+            if need is None:
+                continue
+            need = frozenset(need) | extra.get(id(n.source), frozenset())
+            all_cols = frozenset(n.source.schema.names)
+            need = need & all_cols
+            current = frozenset(n.columns) if n.columns is not None else all_cols
+            if not need:
+                # row-count-only consumers (e.g. len): keep one narrow column
+                cheapest = min(n.source.schema.columns, key=lambda c: c.itemsize)
+                need = frozenset([cheapest.name])
+            if need < current:
+                ns = G.Scan(n.source, tuple(sorted(need)), n.dtype_overrides,
+                            pushdown=n.pushdown)
+                ns.skip_partitions = n.skip_partitions
+                replace[n.id] = ns
+                if trace is not None:
+                    trace.append(
+                        f"column_selection scan#{n.id}: {len(current)}→{len(need)} cols")
+    if not replace:
+        return roots, {}
+    return _rebuild(roots, replace)
+
+
+# ---------------------------------------------------------------------------
+# Zone-map partition pruning (beyond paper)
+
+
+def _conjuncts(p: E.Expr) -> list[E.Expr]:
+    if isinstance(p, E.BinOp) and p.op == "and":
+        return _conjuncts(p.left) + _conjuncts(p.right)
+    return [p]
+
+
+def zone_map_pruning(roots: list[G.Node], trace=None
+                     ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """For Filter→(row-preserving ops)→Scan chains, skip partitions whose
+    zone maps prove the predicate all-False.  Only predicates over columns
+    unmodified along the chain participate."""
+    parents = G.parents_map(roots)
+    replace: dict[int, G.Node] = {}
+    for n in G.walk(roots):
+        if not isinstance(n, G.Filter):
+            continue
+        # walk down through row-preserving unary ops collecting modified cols
+        node = n.inputs[0]
+        modified: set[str] = set()
+        ok = True
+        while not isinstance(node, G.Scan):
+            if node.op in _SWAPPABLE and len(node.inputs) == 1 \
+                    and len(parents.get(node.id, [])) == 1 \
+                    and G.ALL not in node.mod_attrs():
+                modified |= set(node.mod_attrs())
+                if node.op == "rename":
+                    ok = False  # name changes: skip for safety
+                    break
+                node = node.inputs[0]
+            else:
+                ok = False
+                break
+        if not ok or not isinstance(node, G.Scan):
+            continue
+        scan = node
+        if len(parents.get(scan.id, [])) != 1:
+            # another consumer (e.g. a head(n) beside this filter) reads
+            # the scan whole; pruning the shared node would change its rows
+            continue
+        usable = [c for c in _conjuncts(n.predicate)
+                  if isinstance(c, E.BinOp) and not (c.used_cols() & modified)]
+        if not usable:
+            continue
+        skips = set(scan.skip_partitions)
+        for pi in range(scan.source.n_partitions):
+            zm = scan.source.partition_meta(pi)
+            zonemap = zm.get("zonemap", {})
+            if not zonemap:
+                continue
+            if any(c.prune_partition(zonemap) for c in usable):
+                skips.add(pi)
+        if skips != set(scan.skip_partitions):
+            ns = G.Scan(scan.source, scan.columns, scan.dtype_overrides,
+                        pushdown=scan.pushdown)
+            ns.skip_partitions = frozenset(skips)
+            replace[scan.id] = ns
+            if trace is not None:
+                trace.append(f"zone_map_prune scan#{scan.id}: "
+                             f"skip {len(skips)}/{scan.source.n_partitions} partitions")
+    if not replace:
+        return roots, {}
+    return _rebuild(roots, replace)
+
+
+# ---------------------------------------------------------------------------
+# Scan predicate pushdown (beyond paper; the IO-subsystem boundary)
+
+
+def _has_udf(e: E.Expr) -> bool:
+    import dataclasses
+    if isinstance(e, E.UDF):
+        return True
+    if dataclasses.is_dataclass(e):
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            for x in (v if isinstance(v, (list, tuple)) else (v,)):
+                if isinstance(x, E.Expr) and _has_udf(x):
+                    return True
+    return False
+
+
+def scan_pushdown(roots: list[G.Node], trace=None
+                  ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Sink a Filter's conjuncts into the Scan beneath it
+    (``Scan.pushdown``), so the source layer evaluates the predicate per
+    partition right after decode — the Filter node disappears from the
+    plan, and the scan's column set can then shrink to the output
+    projection (predicate-only columns are read transiently by the
+    loader, never materialized downstream).
+
+    Runs after ``push_filters`` (which lands fused filters directly on
+    scans) and after ``zone_map_pruning`` (which needs the Filter
+    present); conjuncts that reference UDFs or non-source columns stay in
+    a residual Filter.  Sources must opt in via ``supports_pushdown``."""
+    parents = G.parents_map(roots)
+    replace: dict[int, G.Node] = {}
+    scan_map: dict[int, G.Node] = {}
+    claimed: set[int] = set()
+    for n in G.walk(roots):
+        if not isinstance(n, G.Filter):
+            continue
+        u = n.inputs[0]
+        if not isinstance(u, G.Scan) or u.id in claimed:
+            continue
+        if not getattr(u.source, "supports_pushdown", False):
+            continue
+        if len(parents.get(u.id, [])) != 1 or u.persist:
+            continue
+        names = frozenset(u.source.schema.names)
+        pushable: list[E.Expr] = []
+        residual: list[E.Expr] = []
+        for c in _conjuncts(n.predicate):
+            if _has_udf(c) or not (c.used_cols() <= names):
+                residual.append(c)
+            else:
+                pushable.append(c)
+        if not pushable:
+            continue
+        merged = list(u.pushdown.conjuncts) if u.pushdown is not None else []
+        merged += [c for c in pushable if c not in merged]
+        ns = G.Scan(u.source, u.columns, u.dtype_overrides,
+                    pushdown=G.ScanPushdown(merged))
+        ns.skip_partitions = u.skip_partitions
+        if residual:
+            out: G.Node = G.Filter(ns, E.conjoin(residual))
+        else:
+            out = ns
+        G.copy_runtime_flags(n, out)
+        replace[n.id] = out
+        scan_map[u.id] = ns
+        claimed.add(u.id)
+        if trace is not None:
+            trace.append(f"scan_pushdown scan#{u.id}: "
+                         f"{len(pushable)} conjuncts sunk"
+                         + (f", {len(residual)} residual" if residual else ""))
+    if not replace:
+        return roots, {}
+    roots2, m = _rebuild(roots, replace)
+    # the absorbed Scan is never visited by the rebuild walk (its only
+    # parent — the Filter — is replaced before its inputs are descended),
+    # so record its image explicitly: the composed idmap must track it or
+    # the plan cache's rebinding slots keep the stale pushdown-free Scan
+    for uid, ns in scan_map.items():
+        m.setdefault(uid, ns)
+    return roots2, m
+
+
+# ---------------------------------------------------------------------------
+# Metadata dtype narrowing (paper §3.6) — applied to scans of read-only cols
+
+
+def dtype_narrowing(roots: list[G.Node], ctx: LaFPContext | None,
+                    trace=None) -> tuple[list[G.Node], dict[int, G.Node]]:
+    import numpy as np
+    from .schema import narrow_int_dtype
+    readonly = None
+    if ctx is not None:
+        readonly = ctx.analysis.get("readonly_cols")  # None → analysis absent
+    replace = {}
+    for n in G.walk(roots):
+        if not isinstance(n, G.Scan):
+            continue
+        overrides = dict(n.dtype_overrides)
+        cols = n.columns or n.source.schema.names
+        for c in cols:
+            cs = n.source.schema.col(c)
+            if cs.is_dict or cs.is_datetime or cs.np_dtype.kind != "i":
+                continue
+            if readonly is not None and c not in readonly:
+                continue  # paper's read-only guard
+            lo, hi = None, None
+            for pi in range(n.source.n_partitions):
+                zm = n.source.partition_meta(pi).get("zonemap", {})
+                if c not in zm:
+                    lo = None
+                    break
+                plo, phi = zm[c]
+                lo = plo if lo is None else min(lo, plo)
+                hi = phi if hi is None else max(hi, phi)
+            if lo is None:
+                continue
+            target = narrow_int_dtype(int(lo), int(hi))
+            if target.itemsize < cs.np_dtype.itemsize:
+                overrides[c] = str(target)
+        if overrides != n.dtype_overrides:
+            ns = G.Scan(n.source, n.columns, overrides, pushdown=n.pushdown)
+            ns.skip_partitions = n.skip_partitions
+            replace[n.id] = ns
+            if trace is not None:
+                trace.append(f"dtype_narrow scan#{n.id}: {overrides}")
+    if not replace:
+        return roots, {}
+    return _rebuild(roots, replace)
+
+
+def _engines_execute_pushdown(ctx) -> bool:
+    """True when every engine this plan could land on declares the
+    ``scan_pushdown`` capability.  An engine that does not know about
+    ``Scan.pushdown`` (e.g. an externally registered plugin with its own
+    scan loader) would silently drop the absorbed filter — so the pass
+    only runs when the session engine (or, under AUTO, every candidate)
+    opts in."""
+    from .engines import AUTO, default_registry
+    reg = default_registry()
+    engine = str(ctx.backend)
+    if engine == AUTO:
+        from .planner.select import candidate_engines
+        names = candidate_engines(ctx)
+    else:
+        names = (engine,)
+    try:
+        return all(getattr(reg.capability_of(n), "scan_pushdown", False)
+                   for n in names)
+    except Exception:  # noqa: BLE001 — unknown engine: stay conservative
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Pipeline
+
+
+def optimize(roots: list[G.Node], ctx: LaFPContext | None = None,
+             enable: Iterable[str] = ("cse", "rewrite", "pushdown",
+                                      "selectivity", "columns", "zonemap",
+                                      "scan_pushdown", "dtypes", "fuse")
+             ) -> tuple[list[G.Node], dict[int, G.Node]]:
+    """Run the rule pipeline; returns (new_roots, combined id map)."""
+    enable = set(enable)
+    trace = ctx.optimizer_trace if ctx is not None else None
+    combined: dict[int, G.Node] = {n.id: n for n in G.walk(roots)}
+
+    def absorb(m: dict[int, G.Node]):
+        for k in combined:
+            cur = combined[k]
+            while cur.id in m and m[cur.id] is not cur:
+                cur = m[cur.id]
+            combined[k] = cur
+
+    if "cse" in enable:
+        roots, m = cse(roots)
+        absorb(m)
+    if "rewrite" in enable and (ctx is None
+                                or ctx.backend_options.get("rewrites", True)):
+        # pattern rewrites run before pushdown: filter-through-concat and
+        # vectorized MapRows expose structure the later passes exploit
+        from .rewrite import apply_rewrites
+        roots, m, _ = apply_rewrites(roots, ctx, trace=trace)
+        absorb(m)
+    if "pushdown" in enable:
+        roots, m = push_filters(roots, trace)
+        absorb(m)
+        roots, m = push_common_parent_filters(roots, trace)
+        absorb(m)
+        roots, m = cse(roots)  # pushdown can expose new sharing
+        absorb(m)
+    if "selectivity" in enable:
+        roots, m = order_conjuncts(roots, ctx, trace)
+        absorb(m)
+    if "columns" in enable:
+        roots, m = column_selection(roots, ctx, trace)
+        absorb(m)
+    if "zonemap" in enable and (ctx is None
+                                or ctx.backend_options.get("zonemap", True)):
+        roots, m = zone_map_pruning(roots, trace)
+        absorb(m)
+    if "scan_pushdown" in enable and (
+            ctx is None or (ctx.backend_options.get("pushdown", True)
+                            and _engines_execute_pushdown(ctx))):
+        roots, m = scan_pushdown(roots, trace)
+        absorb(m)
+        if m and "columns" in enable:
+            # the absorbed Filter's predicate columns are no longer live
+            # above the scan — shrink Scan.columns to the output projection
+            roots, m = column_selection(roots, ctx, trace)
+            absorb(m)
+    if "dtypes" in enable:
+        roots, m = dtype_narrowing(roots, ctx, trace)
+        absorb(m)
+    if "fuse" in enable and (ctx is None
+                             or ctx.backend_options.get("fusion", True)):
+        # runs last: fusion freezes chains, so every structural rewrite
+        # must already have happened
+        from .fuse import fuse_rowwise_chains
+        roots, m = fuse_rowwise_chains(roots, ctx, trace)
+        absorb(m)
+    return roots, combined

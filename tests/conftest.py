@@ -4,6 +4,12 @@ import pytest
 from repro.core.context import LaFPContext, pop_session, push_session
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's hand-written kernels); "
+        "skips where torch finds none")
+
+
 @pytest.fixture(autouse=True)
 def fresh_context():
     """Each test runs inside its own pushed session — the one place test
