@@ -7,8 +7,11 @@ Phases, each fatal on failure:
    and the device count;
 2. the build of the hand-written kernels (``src/repro_torch/kernels/csrc``);
 3. each kernel held against its plain PyTorch version on the card, at the
-   main path's shapes and on edge cases, with its time (CUDA events), its
-   bound at 3.35 TB/s, the plain version's time and a library call's time;
+   main path's shapes and on edge cases, with its own device time (the
+   durations of its CUDA kernels, torch.profiler), what a call of its
+   wrapper costs (CUDA events), its bound at 3.35 TB/s, the plain version's
+   time and a library call's time (events and device), each the median of
+   five windows with their spread;
 4. the main path through ``repro_torch.pandas`` on the eager engine at
    NYC-taxi-month scale (12.7 M rows, about January 2015 of yellow-taxi
    trips): ``filter_groupby`` and a sum/count feature-engineering program,
@@ -37,6 +40,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the tensor cores
 PARTITION_ROWS = 1 << 16
+REPEATS = 5                    # timing windows per figure (median, spread)
 VENDORS = ["acme", "beta", "cabco"]
 JAN_2015 = 1_420_070_400       # 2015-01-01T00:00:00Z
 
@@ -46,7 +50,8 @@ JAN_2015 = 1_420_070_400       # 2015-01-01T00:00:00Z
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card over ``iters`` runs."""
+    """Mean milliseconds of ``fn`` on the card over ``iters`` runs: what a
+    caller pays, host work and host syncs inside ``fn`` included."""
     import torch
     for _ in range(warmup):
         fn()
@@ -59,6 +64,81 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def median_spread(samples: list[float]) -> tuple[float, list[float]]:
+    s = sorted(samples)
+    mid = len(s) // 2
+    med = s[mid] if len(s) % 2 else (s[mid - 1] + s[mid]) / 2
+    return med, [s[0], s[-1]]
+
+
+def call_ms(fn, iters: int = 20, repeats: int = REPEATS) -> tuple[float, list[float]]:
+    """``cuda_ms`` repeated ``repeats`` times: (median, [min, max])."""
+    return median_spread([cuda_ms(fn, iters, warmup=3 if r == 0 else 1)
+                          for r in range(repeats)])
+
+
+def device_us_by_name(prof) -> dict[str, float]:
+    """Device microseconds by activity name in a torch.profiler run."""
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            out[ev.key] = out.get(ev.key, 0.0) + us
+    return out
+
+
+def own_activity(name: str, prefixes: tuple[str, ...] | None) -> bool:
+    """Whether a device activity counts: a kernel whose name (template
+    kernels carry a leading ``void``) starts with one of ``prefixes``, or,
+    with ``prefixes`` None, every kernel and memset (copies between host
+    and card are not the function's work)."""
+    if prefixes is None:
+        return not name.startswith("Memcpy")
+    return name.removeprefix("void ").startswith(prefixes)
+
+
+def device_ms(fn, prefixes: tuple[str, ...] | None, calls: int = 20,
+              repeats: int = REPEATS) -> tuple[float, list[float]]:
+    """Device milliseconds per call of ``fn``: the durations of the device
+    activities it launches (``own_activity``), summed with torch.profiler
+    over a steady window of ``calls`` calls, divided by ``calls``; the
+    window is taken ``repeats`` times, giving (median, [min, max]).  Host
+    work and host syncs between launches are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(v for k, v in device_us_by_name(prof).items()
+                 if own_activity(k, prefixes))
+        check(us > 0, f"torch.profiler saw no device time of {prefixes}")
+        samples.append(us / 1e3 / calls)
+    return median_spread(samples)
+
+
+def timings(kernel, plain, library, prefixes: tuple[str, ...]) -> dict:
+    """The timing keys of one kernel row: the kernel's own device time,
+    what a caller pays for the wrapper, the plain version's and the library
+    call's event times, and the library call's device time."""
+    d, d_sp = device_ms(kernel, prefixes)
+    c, c_sp = call_ms(kernel)
+    p, _ = call_ms(plain, repeats=3)
+    lib_c, _ = call_ms(library)
+    lib_d, lib_d_sp = device_ms(library, None)
+    return {"ms": d, "device_ms": d, "device_ms_spread": d_sp,
+            "call_ms": c, "call_ms_spread": c_sp, "plain_ms": p,
+            "library_ms": lib_c, "library_device_ms": lib_d,
+            "library_device_ms_spread": lib_d_sp}
 
 
 def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -152,15 +232,14 @@ def kernel_filter_compact(arrays, dev) -> dict:
     n = mask.shape[0]
     k = int(mask.sum())
     es = sum(v.element_size() for v in table.values())
-    ms = cuda_ms(lambda: FC.filter_compact_table(table, mask))
-    plain_ms = cuda_ms(lambda: ref.filter_compact_table_ref(table, mask))
-    library_ms = cuda_ms(lambda: [v[mask] for v in table.values()])
+    t = timings(lambda: FC.filter_compact_table(table, mask),
+                lambda: ref.filter_compact_table_ref(table, mask),
+                lambda: [v[mask] for v in table.values()], ("fc_",))
     b_ms, b_by = bound(n + n * es + k * es)
     return {"name": "filter_compact", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/filter_compact.cu",
             "replaces": "src/repro/kernels/filter_compact.py:66",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"{n} rows x 3 cols (f64, f64, i32), {k} survivors"}
 
 
@@ -225,17 +304,16 @@ def kernel_groupby_sum(arrays, dev) -> dict:
         {"rows": int(codes.shape[0]), "ms": sorted_ms}), flush=True)
 
     n = codes.shape[0]
-    ms = cuda_ms(lambda: GB.groupby_sum_count(codes, vals, G))
-    plain_ms = cuda_ms(lambda: ref.groupby_sum_count_ref(codes, vals, G))
     both = torch.stack([vals, torch.ones_like(vals)], dim=1)
     zeros = torch.zeros((G, 2), dtype=vals.dtype, device=dev)
-    library_ms = cuda_ms(lambda: zeros.clone().index_add_(0, codes, both))
+    t = timings(lambda: GB.groupby_sum_count(codes, vals, G),
+                lambda: ref.groupby_sum_count_ref(codes, vals, G),
+                lambda: zeros.clone().index_add_(0, codes, both), ("gb_",))
     b_ms, b_by = bound(n * 8 + n * 8 + G * 8 + G * 8, ops=2 * n)
     return {"name": "groupby_sum", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/groupby_sum.cu",
             "replaces": "src/repro/kernels/groupby_sum.py:56",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"{n} rows, int64 codes, f64 values, G=3, sum+count"}
 
 
@@ -278,21 +356,20 @@ def kernel_zonemap(arrays, dev) -> tuple[dict, dict]:
     x = torch.from_numpy(arr).to(dev)
     n = x.shape[0]
     nb = -(-n // PARTITION_ROWS)
-    ms = cuda_ms(lambda: ZM.zonemap(x, PARTITION_ROWS))
-    plain_ms = cuda_ms(lambda: ref.zonemap_ref(x, PARTITION_ROWS))
     padded = torch.cat([x, x[-1:].expand(nb * PARTITION_ROWS - n)]).view(nb, -1)
-    library_ms = cuda_ms(lambda: torch.aminmax(padded, dim=1))
+    t = timings(lambda: ZM.zonemap(x, PARTITION_ROWS),
+                lambda: ref.zonemap_ref(x, PARTITION_ROWS),
+                lambda: torch.aminmax(padded, dim=1), ("zm_",))
     b_ms, b_by = bound(n * 8 + 2 * nb * 8, ops=2 * n)
     host = torch.from_numpy(arr)
     upload_ms = cuda_ms(lambda: host.to(dev), iters=5, warmup=1)
     upload = {"zonemap_upload": {"column": "fare", "bytes": int(arr.nbytes),
                                  "ms": upload_ms,
-                                 "kernel_ms": ms}}
+                                 "kernel_device_ms": t["device_ms"]}}
     return ({"name": "zonemap", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/zonemap.cu",
              "replaces": "src/repro/kernels/zonemap.py:33",
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+             "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
              "shape": f"{n} rows f64, blocks of {PARTITION_ROWS} ({nb} blocks)"},
             upload)
 
@@ -428,12 +505,8 @@ def breakdown(arrays) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     kernels: dict[str, float] = {}
-    for ev in tp.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0.0)
-            kernels[ev.key[:60]] = kernels.get(ev.key[:60], 0.0) + us / 1e6
+    for key, us in device_us_by_name(tp).items():
+        kernels[key[:60]] = kernels.get(key[:60], 0.0) + us / 1e6
     busy = sum(kernels.values())
     out["warm_wall_s"] = wall
     out["warm_device_busy_s"] = busy
@@ -486,9 +559,14 @@ def main(argv=None) -> int:
     zm, upload = kernel_zonemap(arrays, dev)
     kernels.append(zm)
     for k in kernels:
-        print(f"kernel {k['name']}: ok max_abs_err={k['max_abs_err']} ms={k['ms']:.4f} "
+        k["bound_share"] = k["bound_ms"] / k["device_ms"]
+        print(f"kernel {k['name']}: ok max_abs_err={k['max_abs_err']} "
+              f"device_ms={k['device_ms']:.4f} {k['device_ms_spread']} "
+              f"call_ms={k['call_ms']:.4f} {k['call_ms_spread']} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
-              f"bound_ms={k['bound_ms']:.4f} ({k['shape']})", flush=True)
+              f"library_device_ms={k['library_device_ms']:.4f} "
+              f"bound_ms={k['bound_ms']:.4f} share={k['bound_share']:.3f} "
+              f"({k['shape']})", flush=True)
     print(json.dumps(upload), flush=True)
 
     launches = main_path(arrays, dev)
