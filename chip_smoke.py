@@ -24,7 +24,12 @@ Phases, each fatal on failure:
 Exits non-zero, printing no result, when no CUDA device is present or when
 run outside the repository.
 
-    python3 chip_smoke.py [--seed 0] [--rows 12700000]
+    python3 chip_smoke.py [--seed 0] [--rows 12700000] [--parent-csrc DIR]
+
+``--parent-csrc DIR`` (a directory holding an earlier commit's
+``src/repro_torch/kernels/csrc/*.cu``, e.g. from ``git show``) adds a
+phase that times that commit's zonemap and filter_compact against this
+tree's in turns on the same card.
 """
 from __future__ import annotations
 
@@ -187,9 +192,43 @@ def make_taxi(rows: int, seed: int) -> dict:
 # 3. kernels against their plain versions
 
 
+def fc_edge_case(FC, ref, g, dev, n, m, kind, lead) -> None:
+    """filter_compact of every dtype under mask ``m`` (n rows), table form
+    and one-column form, against the plain version; with ``lead`` > 0 the
+    mask and columns are views ``x[lead:]`` of longer tensors."""
+    import torch
+    N = n + lead
+    f = torch.randn(N, generator=g, device=dev, dtype=torch.float64)
+    f[::7] = float("nan")
+    cols = {"f64": f, "f32": f.float(),
+            "i64": torch.randint(-2**62, 2**62, (N,), generator=g, device=dev),
+            "i32": torch.randint(-2**31, 2**31 - 1, (N,), generator=g, device=dev,
+                                 dtype=torch.int32),
+            "i16": torch.randint(-2**15, 2**15 - 1, (N,), generator=g, device=dev,
+                                 dtype=torch.int16),
+            "b": torch.rand(N, generator=g, device=dev) < 0.5}
+    for extra in range(14):
+        cols[f"x{extra}"] = cols["i32"] + extra
+    if lead:
+        m = torch.cat([torch.ones(lead, dtype=torch.bool, device=dev), m])[lead:]
+        cols = {c: v[lead:] for c, v in cols.items()}
+    what = f"n={n} {kind} view x[{lead}:]"
+    got_t = FC.filter_compact_table(cols, m)
+    want_t = ref.filter_compact_table_ref(cols, m)
+    for c in cols:
+        check(same_bits(got_t[c], want_t[c]), f"filter_compact {what} {c}")
+    for c in ("f64", "i64", "i32", "i16", "b"):
+        p, k = FC.filter_compact(cols[c], m)
+        rp, rk = ref.filter_compact_ref(cols[c], m)
+        check(same_bits(p, rp) and int(k) == int(rk),
+              f"filter_compact one-column {what} {c}")
+
+
 def kernel_filter_compact(arrays, dev) -> dict:
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import filter_compact as FC
+    from repro_torch.kernels import ops as K
     from repro_torch.kernels import ref
 
     # main path: the scan's output columns compacted under fare > 0
@@ -201,33 +240,33 @@ def kernel_filter_compact(arrays, dev) -> dict:
         check(same_bits(got[c], want[c]), f"filter_compact main path column {c}")
     err = max(max_abs_err(got[c], want[c]) for c in table)
 
-    # edge cases: sizes around the 2048-row tile, empty, all-false,
-    # all-true, NaN, 1/2/4/8-byte dtypes, more columns than one launch takes
+    # edge cases: sizes one either side of a lane's 16 mask bytes, a warp's
+    # 512 rows and the 4096-row tile; empty, all-false, all-true, survivors
+    # only around tile boundaries; NaN; 1/2/4/8-byte dtypes; more columns
+    # than one launch takes; views starting 1 and 3 rows in (unaligned)
     g = torch.Generator(device=dev).manual_seed(0)
-    for n in (0, 1, 2047, 2048, 2049, 100_003):
-        for kind in ("random", "none", "all"):
-            m = (torch.rand(n, generator=g, device=dev) < 0.4) if kind == "random" \
-                else torch.full((n,), kind == "all", dtype=torch.bool, device=dev)
-            f = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
-            f[::7] = float("nan")
-            cols = {"f64": f, "f32": f.float(),
-                    "i64": torch.randint(-2**62, 2**62, (n,), generator=g, device=dev),
-                    "i32": torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
-                                         dtype=torch.int32),
-                    "i16": torch.randint(-2**15, 2**15 - 1, (n,), generator=g, device=dev,
-                                         dtype=torch.int16),
-                    "b": torch.rand(n, generator=g, device=dev) < 0.5}
-            for extra in range(14):
-                cols[f"x{extra}"] = cols["i32"] + extra
-            got_t = FC.filter_compact_table(cols, m)
-            want_t = ref.filter_compact_table_ref(cols, m)
-            for c in cols:
-                check(same_bits(got_t[c], want_t[c]), f"filter_compact n={n} {kind} {c}")
-            for c in ("f64", "i64", "b"):
-                p, k = FC.filter_compact(cols[c], m)
-                rp, rk = ref.filter_compact_ref(cols[c], m)
-                check(same_bits(p, rp) and int(k) == int(rk),
-                      f"filter_compact one-column n={n} {kind} {c}")
+    tile = _build.lib().fc_tile_rows()
+    sizes = (0, 1, 15, 16, 17, 511, 512, 513, 2047, 2048, 2049, tile - 1, tile,
+             tile + 1, 2 * tile - 1, 2 * tile + 1, 100_003)
+    for n in sizes:
+        for kind in ("random", "none", "all", "straddle"):
+            if kind == "random":
+                m = torch.rand(n, generator=g, device=dev) < 0.4
+            elif kind == "straddle":
+                r = torch.arange(n, device=dev) % tile
+                m = (r < 5) | (r >= tile - 5)
+            else:
+                m = torch.full((n,), kind == "all", dtype=torch.bool, device=dev)
+            for lead in ((0, 1, 3) if n in (tile + 1, 100_003) else (0,)):
+                fc_edge_case(FC, ref, g, dev, n, m, kind, lead)
+    # the two-level chunked form; chunks of 1001 rows start off 16 bytes
+    v = torch.randn(100_003, generator=g, device=dev, dtype=torch.float64)
+    m = torch.rand(100_003, generator=g, device=dev) < 0.3
+    for chunk in (1 << 14, 1001):
+        p, k = K.filter_compact_chunked(v, m, chunk=chunk)
+        rp, rk = ref.filter_compact_ref(v, m)
+        check(same_bits(p, rp) and int(k) == int(rk),
+              f"filter_compact_chunked chunk={chunk}")
 
     n = mask.shape[0]
     k = int(mask.sum())
@@ -317,6 +356,55 @@ def kernel_groupby_sum(arrays, dev) -> dict:
             "shape": f"{n} rows, int64 codes, f64 values, G=3, sum+count"}
 
 
+def zonemap_edge_cases(ZM, ref, g, dev, column) -> None:
+    """zonemap against the plain version where its pieces and vectors have
+    edges: one block over a whole main-path column; blocks smaller than,
+    equal to and not a multiple of a thread block's 16-byte load chunk;
+    a NaN in one piece only; int64 at +-(2**63-1); views x[1:], x[3:]."""
+    import torch
+    from repro_torch.kernels import _build
+
+    lib = _build.lib()
+    check(ZM.CTAS_PER_SM <= lib.zm_min_blocks()
+          and lib.zm_threads() * 4 * 16 == ZM.MIN_PIECE_BYTES,
+          "zonemap: plan_split's constants differ from csrc/zonemap.cu")
+
+    def same(x, block, what):
+        mn, mx = ZM.zonemap(x, block)
+        rmn, rmx = ref.zonemap_ref(x, block)
+        check(same_bits(mn, rmn) and same_bits(mx, rmx),
+              f"zonemap {what} block_rows={block} n={x.shape[0]} {x.dtype}")
+
+    same(column, column.shape[0], "one block over the column")
+    same(column, 1_000_003, "13 blocks")
+    n = 100_003
+    cols = [torch.randn(n, generator=g, device=dev, dtype=torch.float64),
+            torch.randn(n, generator=g, device=dev, dtype=torch.float32),
+            torch.randint(-2**62, 2**62, (n,), generator=g, device=dev),
+            torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.randint(-2**15, 2**15 - 1, (n,), generator=g, device=dev,
+                          dtype=torch.int16),
+            torch.randint(-128, 127, (n,), generator=g, device=dev, dtype=torch.int8),
+            torch.randint(0, 255, (n,), generator=g, device=dev, dtype=torch.uint8)]
+    for x in cols:
+        chunk = ZM.MIN_PIECE_BYTES // x.element_size()
+        for block in (chunk - 1, chunk, 3 * chunk + 5, n):
+            same(x, block, "chunk edges")
+            for lead in (1, 3):
+                same(x[lead:], block, f"view x[{lead}:]")
+    f = torch.randn(1_000_000, generator=g, device=dev, dtype=torch.float64)
+    f[123_457] = float("nan")                       # one piece of block 0
+    same(f, 500_000, "NaN in one piece")
+    mn, _ = ZM.zonemap(f, 500_000)
+    check(bool(torch.isnan(mn[0])) and not bool(torch.isnan(mn[1])),
+          "zonemap NaN in one piece: only its block is NaN")
+    i = torch.randint(-2**40, 2**40, (300_000,), generator=g, device=dev)
+    i[10], i[150_001], i[299_999] = 2**63 - 1, -(2**63 - 1), -2**63
+    same(i, 150_000, "int64 extremes")
+    same(torch.full((70_000,), 2**63 - 1, device=dev), 65_536, "int64 all max")
+
+
 def kernel_zonemap(arrays, dev) -> tuple[dict, dict]:
     import torch
     from repro_torch.kernels import ops as K
@@ -351,6 +439,7 @@ def kernel_zonemap(arrays, dev) -> tuple[dict, dict]:
             check(same_bits(mn, rmn) and same_bits(mx, rmx), f"zonemap n={n} {x.dtype}")
     e_mn, e_mx = K.zonemap(torch.empty((0,), device=dev))
     check(e_mn.shape == (0,) and e_mx.shape == (0,), "zonemap empty contract")
+    zonemap_edge_cases(ZM, ref, g, dev, torch.from_numpy(arrays["fare"]).to(dev))
 
     arr = arrays["fare"]
     x = torch.from_numpy(arr).to(dev)
@@ -372,6 +461,100 @@ def kernel_zonemap(arrays, dev) -> tuple[dict, dict]:
              "max_abs_err": err, **t, "bound_ms": b_ms, "bound_by": b_by,
              "shape": f"{n} rows f64, blocks of {PARTITION_ROWS} ({nb} blocks)"},
             upload)
+
+
+def compare_parent(parent_csrc: str, arrays, dev) -> None:
+    """An earlier commit's zonemap and filter_compact (its ``.cu`` files in
+    ``parent_csrc``, built into a scratch library) against this tree's,
+    each held against the plain version and timed by device time in turns
+    (old, new, new, old) at the main path's shapes; then this tree's
+    zonemap at other depths of ``plan_split``.  The earlier sources must
+    have the C interface of commit 8b0a8bf (a ``zm_minmax`` that takes no
+    pieces)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import filter_compact as FC
+    from repro_torch.kernels import zonemap as ZM
+
+    old = ctypes.CDLL(str(_build.build(Path(parent_csrc),
+                                       _build.BUILD_DIR.parent / "parent_lib")))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for name, argtypes in (("zm_minmax", [I, P, L, L, P, P, P]),
+                           ("fc_count", [P, L, P, P, P]),
+                           ("fc_scatter_cols", [P, L, P, P, P, P, I, I, P]),
+                           ("fc_tile_rows", []), ("fc_max_cols", [])):
+        getattr(old, name).argtypes = argtypes
+        getattr(old, name).restype = I
+
+    def old_zonemap(x, block):
+        nb = -(-x.shape[0] // block)
+        out = torch.empty((2, nb), dtype=x.dtype, device=dev)
+        _build.check(old.zm_minmax(ZM._DTYPE_CODE[x.dtype], x.data_ptr(), x.shape[0],
+                                   block, out[0].data_ptr(), out[1].data_ptr(),
+                                   _build.stream_of(x)), "parent zm_minmax")
+        return out[0], out[1]
+
+    def table_with(lib):
+        def run(cols, mask):
+            stream = _build.stream_of(mask)
+            offsets, tiles = FC._offsets(lib, mask, stream)
+            count = int(offsets[tiles].item())
+            out = {k: torch.empty((count,), dtype=v.dtype, device=dev)
+                   for k, v in cols.items()}
+            FC._scatter(lib, mask, offsets, [(v, out[k]) for k, v in cols.items()],
+                        0, stream)
+            return out
+        return run
+
+    x = torch.from_numpy(arrays["fare"]).to(dev)
+    table = {c: torch.from_numpy(arrays[c]).to(dev) for c in ("fare", "tip", "vendor")}
+    mask = table["fare"] > 0
+    cases = {
+        "zonemap_194_blocks": (lambda: old_zonemap(x, PARTITION_ROWS),
+                               lambda: ZM.zonemap(x, PARTITION_ROWS),
+                               lambda: ref.zonemap_ref(x, PARTITION_ROWS), ("zm_",)),
+        "zonemap_one_block": (lambda: old_zonemap(x, x.shape[0]),
+                              lambda: ZM.zonemap(x, x.shape[0]),
+                              lambda: ref.zonemap_ref(x, x.shape[0]), ("zm_",)),
+        "filter_compact_table": (lambda: table_with(old)(table, mask),
+                                 lambda: table_with(_build.lib())(table, mask),
+                                 lambda: ref.filter_compact_table_ref(table, mask),
+                                 ("fc_",)),
+    }
+    out = {}
+    for name, (f_old, f_new, f_ref, prefixes) in cases.items():
+        want = f_ref()
+        for label, fn in (("old", f_old), ("new", f_new)):
+            got = fn()
+            pairs = (zip(got.values(), want.values()) if isinstance(got, dict)
+                     else zip(got, want))
+            check(all(same_bits(a, b) for a, b in pairs), f"compare_parent {name} {label}")
+        turns = {"old": [], "new": []}
+        for label in ("old", "new", "new", "old"):
+            turns[label].append(device_ms(f_old if label == "old" else f_new, prefixes)[0])
+        out[name] = {k: sum(v) / len(v) for k, v in turns.items()}
+        out[name]["turns"] = turns
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            cases["filter_compact_table"][1]()
+        torch.cuda.synchronize()
+    out["filter_compact_new_by_kernel_ms"] = {
+        k.removeprefix("void ").split("(")[0]: v / 1e3 / 20
+        for k, v in device_us_by_name(prof).items() if own_activity(k, ("fc_",))}
+    depth = {}
+    keep = ZM.CTAS_PER_SM
+    try:
+        for d in (1, 2, 4, 8):
+            ZM.CTAS_PER_SM = d
+            depth[d] = {"194_blocks": device_ms(lambda: ZM.zonemap(x, PARTITION_ROWS), ("zm_",))[0],
+                        "one_block": device_ms(lambda: ZM.zonemap(x, x.shape[0]), ("zm_",))[0]}
+    finally:
+        ZM.CTAS_PER_SM = keep
+    out["zonemap_depth"] = depth
+    print("compare_parent " + json.dumps(out), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -523,6 +706,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=12_700_000)
+    ap.add_argument("--parent-csrc", default=None,
+                    help="a directory holding an earlier commit's csrc/*.cu: "
+                         "time its zonemap and filter_compact against this tree's")
     args = ap.parse_args(argv)
 
     import torch
@@ -568,6 +754,8 @@ def main(argv=None) -> int:
               f"bound_ms={k['bound_ms']:.4f} share={k['bound_share']:.3f} "
               f"({k['shape']})", flush=True)
     print(json.dumps(upload), flush=True)
+    if args.parent_csrc:
+        compare_parent(args.parent_csrc, arrays, dev)
 
     launches = main_path(arrays, dev)
     breakdown(arrays)

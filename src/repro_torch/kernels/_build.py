@@ -41,11 +41,11 @@ def _nvcc() -> str:
                        "built with nvcc at first use on a CUDA machine")
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -54,20 +54,20 @@ def _run(cmd: list[str]) -> subprocess.Popen:
                             text=True)
 
 
-def build() -> Path:
-    """Compile the sources (one nvcc each, in parallel) and link them into
-    one shared library; returns its path.  Reuses a library already built
-    from the same sources and flags."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources in ``csrc`` (one nvcc each, in parallel) and
+    link them into one shared library in ``build_dir``; returns its path.
+    Reuses a library already built from the same sources and flags."""
     global build_seconds
-    lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    lib_path = build_dir / f"librepro_torch_kernels-{_digest(csrc)}.so"
     if lib_path.exists():
         return lib_path
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}-{threading.get_ident()}"
-    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
-    procs = [_run([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)])
+    objs = [build_dir / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
+    procs = [_run([nvcc, *NVCC_FLAGS, "-c", str(csrc / s), "-o", str(o)])
              for s, o in zip(SOURCES, objs)]
     errors = []
     for s, p in zip(SOURCES, procs):
@@ -103,7 +103,9 @@ _SIGNATURES = {
     "gb_piece_rows": [],
     "gb_sum_sorted": [_I, _P, _P, _P, _L, _I, _L, _P, _P, _P, _P, _L, _P, _P,
                       _P],
-    "zm_minmax": [_I, _P, _L, _L, _P, _P, _P],
+    "zm_threads": [],
+    "zm_min_blocks": [],
+    "zm_minmax": [_I, _P, _L, _L, _I, _L, _P, _P, _P, _P],
 }
 
 

@@ -1,9 +1,10 @@
 """Stable stream compaction on the card (``csrc/filter_compact.cu``).
 
-Port of ``repro.kernels.filter_compact`` (the Pallas TPU kernel).  The
-survivor positions are computed once per mask (tile counts, a scan over
-the tiles, in-tile ballot ranks) and every column of a table is scattered
-under them, byte for byte in its own dtype.
+Port of ``repro.kernels.filter_compact`` (the Pallas TPU kernel).  A count
+pass gives each tile's output offset; one scatter launch then ranks every
+survivor inside its tile and copies every column of a table under the one
+mask, byte for byte in its own dtype, staged in shared memory and written
+as one contiguous run per tile.
 
 ``launches`` counts the wrapper calls that launched the kernel.
 """

@@ -215,3 +215,42 @@ def test_wrappers_refuse_cpu_tensors():
                                       torch.ones(4), 1)
     with pytest.raises(ValueError):
         zonemap.zonemap(torch.ones(4), 2)
+
+
+# ---------------------------------------------------------------------------
+# zonemap's piece planning (the CUDA wrapper's Python logic)
+
+
+@pytest.mark.parametrize("n,block,es", [
+    (12_700_000, 1 << 16, 8),          # the main path: 194 partitions
+    (12_700_000, 12_700_000, 8),       # one block over a whole column
+    (12_700_000, 1_000_003, 8),
+    (100_003, 4096, 4), (100_003, 16_383, 1), (100_003, 2049, 2),
+    (1, 1, 8), (5, 100, 8), (1 << 20, 1, 8)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_zonemap_plan_split_covers_blocks_in_one_wave(n, block, es, sms):
+    from repro_torch.kernels.zonemap import (CTAS_PER_SM, MIN_PIECE_BYTES,
+                                             plan_split)
+    split, piece = plan_split(n, block, es, sms)
+    nb = -(-n // block)
+    rows = min(block, n)
+    assert split >= 1 and piece >= 1
+    assert split * piece >= rows                 # every row has a piece
+    assert (split - 1) * piece < rows            # and no piece is empty
+    if split == 1:
+        assert piece == block
+    else:
+        assert nb * split <= sms * CTAS_PER_SM   # one wave
+        assert piece * es >= MIN_PIECE_BYTES
+        assert piece % (16 // es) == 0           # aligned blocks stay aligned
+
+
+def test_zonemap_plan_split_main_path_shapes():
+    from repro_torch.kernels.zonemap import plan_split
+    # 194 partitions of 65,536 f64 rows on 132 SMs: more blocks than
+    # SMs, so each stays whole (one launch, no merge)
+    assert plan_split(12_700_000, 1 << 16, 8, 132) == (1, 1 << 16)
+    # a single block over 12.7 M rows spreads over every SM, two deep
+    assert plan_split(12_700_000, 12_700_000, 8, 132) == (264, 48_108)
+    # 13 blocks: 20 pieces each
+    assert plan_split(12_700_000, 1_000_003, 8, 132)[0] == 20
